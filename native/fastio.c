@@ -1,6 +1,6 @@
 /* Native IO runtime for particle_simulation_tpu.
  *
- * TPU-native counterpart of the reference's host-side native layer:
+ * Counterpart of the reference's host-side native layer:
  *   - cross-section table parsing (reference processCSData,
  *     src/cross_section.cu:3-28) — a tight fscanf-free float parser;
  *   - PNG encoding for particle-scatter snapshots (reference image()/
@@ -37,7 +37,7 @@ fastio_parse_float_pairs(PyObject *self, PyObject *args)
         return NULL;
     }
     /* Non-seekable paths (FIFOs, ...) make ftell return -1, which would
-       underflow the malloc size and overflow the fread (ADVICE r1). */
+       underflow the malloc size and overflow the fread. */
     long size = -1;
     if (fseek(f, 0, SEEK_END) == 0)
         size = ftell(f);

@@ -1,4 +1,5 @@
-"""particle_simulation_tpu: a TPU-native PIC-MCC plasma simulation framework.
+"""particle_simulation_tpu: a JAX PIC-MCC plasma simulation framework that
+runs on NVIDIA GPUs (and on the CPU for tests).
 
 Brand-new JAX/XLA/Pallas implementation of the capabilities of the CUDA
 reference `MagnusMouritzen/particle-simulation` (see SURVEY.md).

@@ -25,7 +25,7 @@ CC_HEADER = (
 
 def run_cc_sweep(
     chances=(0.02, 0.1, 0.5, 2.0, 10.0, 50.0),
-    schedulers=("dynamic", "sync", "naive", "dynamic_old"),
+    schedulers=("dynamic", "sync", "naive"),
     out_csv: str = CC_CSV,
 ):
     """Run the sweep: constant tables with split = remove = cc/2 (percent),

@@ -1,4 +1,4 @@
-"""External-validation plot (VERDICT r4 #6): measured population trajectory
+"""External-validation plot: simulated population trajectory
 under constant collision tables vs the analytic branching-process mean with
 Monte-Carlo bounds.
 

@@ -40,8 +40,22 @@ def load_npz(path: str) -> tuple[SimState, int]:
         return state, int(z["poisson_step"])
 
 
+def _orbax():
+    """orbax.checkpoint, imported on first use: it is an optional
+    dependency, needed only by the orbax backend."""
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise RuntimeError(
+            "the orbax checkpoint backend needs the 'orbax-checkpoint' "
+            "package (pip install orbax-checkpoint); the npz backend needs "
+            "nothing beyond numpy"
+        ) from e
+    return ocp
+
+
 def save_orbax(ckpt_dir: str, state: SimState, poisson_step: int) -> None:
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{poisson_step:06d}"))
     with ocp.PyTreeCheckpointer() as ckptr:
@@ -64,7 +78,7 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def load_orbax(ckpt_dir: str, poisson_step: int) -> SimState:
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{poisson_step:06d}"))
     with ocp.PyTreeCheckpointer() as ckptr:
@@ -73,6 +87,9 @@ def load_orbax(ckpt_dir: str, poisson_step: int) -> SimState:
 
 
 def make_checkpoint_hook(config: SimConfig, ckpt_dir: str, backend: str = "orbax"):
+    if backend == "orbax":
+        _orbax()  # fail before the run starts, not at its first snapshot
+
     def on_step(t, state):
         if backend == "orbax":
             save_orbax(ckpt_dir, state, t)

@@ -2,8 +2,8 @@
 
 Reference (run:1-9, src/main.cu:8-47):
     main MODE VERBOSE INIT_N MAX_T BLOCK_SIZE MAX_N SLEEP_TIME POISSON_TS
-with MODE in {bench, 30 (Dynamic), 31 (CPU Sync), 32 (Naive),
-33 (Dynamic Old), test}.
+with MODE in {bench, 30 (Dynamic), 31 (CPU Sync), 32 (Naive), test}; the
+reference's mode 33 (Dynamic Old) has no engine here and is refused.
 
 Usage:  python -m particle_simulation_tpu 30 0 1000000 10 256 50000000 100 100
 Extra keyword-style overrides (grid=, cs=, seed=, precision=, mesh=N for a
@@ -11,9 +11,9 @@ multi-chip run over an N-device mesh, ckpt=DIR, field=, platform=,
 bucket=0/1 to disable/enable capacity-ladder bucketing [default 1];
 bench mode: profile=ci|quick|full and resume=0/1) are accepted after the
 positional args — a new-framework extension.  Any other
-scalar SimConfig field is also accepted as key=value (engine knobs like
-lookup_hits=1, kernel_sublanes=64, worklog_start_buckets=4), coerced by
-the field's type; unknown keys are a hard error.
+scalar SimConfig field is also accepted as key=value (knobs like
+rng_mode=perstep, bbox_subgrid=0, grid_live_chunks=4), coerced by the
+field's type; unknown keys are a hard error.
 """
 
 from __future__ import annotations
@@ -39,6 +39,11 @@ class CliOptions:
 
 def parse_args(argv) -> CliOptions:
     mode = argv[0]
+    if mode == "33":
+        raise SystemExit(
+            "mode 33 (Dynamic Old) is not available: use 30 (Dynamic), "
+            "31 (CPU Sync) or 32 (Naive)"
+        )
     cfg = SimConfig()
     positional = [a for a in argv[1:] if "=" not in a]
     if mode in SCHEDULER_MODES or mode == "test":
@@ -105,10 +110,10 @@ def parse_args(argv) -> CliOptions:
 
             jax.config.update("jax_platforms", val)
         else:
-            # generic engine-knob passthrough: any scalar SimConfig field
-            # (e.g. lookup_hits=1, worklog_start_buckets=4,
-            # kernel_sublanes=64) coerced by its default's type; unknown
-            # keys stay a hard error (strict-CLI contract, ADVICE r1)
+            # generic knob passthrough: any scalar SimConfig field (e.g.
+            # rng_mode=perstep, bbox_subgrid=0) coerced by its default's
+            # type; unknown
+            # keys stay a hard error (strict-CLI contract)
             default = getattr(cfg, key, None)
             if isinstance(default, bool):
                 cfg = cfg.replace(**{key: bool(int(val))})
@@ -165,6 +170,9 @@ def main(argv=None) -> int:
         print(__doc__)
         return 2
     start = time.perf_counter()
+    from .utils import compile_cache
+
+    compile_cache.configure()
     opts = parse_args(argv)
     mode, cfg = opts.mode, opts.config
 
@@ -196,9 +204,8 @@ def main(argv=None) -> int:
             # capacity-ladder prefix that holds the population — physics is
             # bit-identical (genealogy-keyed RNG; overflow redoes the step
             # one bucket up) but a reference-shaped MAX_N=5e7 run at small
-            # init_n no longer pays full-capacity step cost (~25% at the
-            # bench point, far more at low n).  bucket=0 restores the
-            # literal full-capacity execution shape.
+            # init_n does not pay full-capacity step cost.  bucket=0
+            # restores the literal full-capacity execution shape.
             run_pic(cfg, on_step=hook, auto_bucket=opts.bucket)
     elif mode == "test":
         from .testing import run_unit_test

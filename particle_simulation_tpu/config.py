@@ -22,10 +22,12 @@ class SimConfig:
     capacity: int = 100_000            # "max n"
     poisson_steps: int = 20            # "max t"
     poisson_timestep: int = 10         # mobility steps per Poisson step
-    scheduler: str = "naive"           # naive | sync | dynamic | dynamic_old
+    scheduler: str = "naive"           # naive | sync | dynamic
     verbose: int = 0                   # log cadence (0 = off)
-    block_size: int = 256              # tile-size hint (reference block size)
-    sleep_time_ns: int = 0             # accepted for CLI parity; unused on TPU
+    # lanes per program of the dynamic engine (the reference's threads per
+    # block); a power of two
+    block_size: int = 256
+    sleep_time_ns: int = 0             # accepted for CLI parity; unused
 
     # ---- physics / domain (reference compile-time constants) ----
     grid_size: Tuple[int, int, int] = constants.DEFAULT_GRID_SIZE
@@ -35,190 +37,21 @@ class SimConfig:
     cross_section_path: str = ""       # "" -> bundled sine-modulated table
 
     # ---- numerics / engine knobs (new-framework-only) ----
-    # Max children one particle may spawn within a single Poisson step when
-    # running the fused Pallas engine (per-lane child buffer depth).  Child
-    # staging costs NF*spawn_depth vector selects per mobility step; A/B on
-    # the chip (2026-08-16, bench point): D=4 158.5, D=2 152.7, D=1 175.1
-    # ms/step (D=1 pays extra suspend/resume passes).
-    spawn_depth: int = 2
-    # dtype for positions/velocities: "f32" (TPU) or "f64" (CPU oracle runs).
+    # dtype for positions/velocities: "f32" (production) or "f64" (CPU
+    # oracle runs).
     precision: str = "f32"
-    # Fused-kernel tuning knobs (A/B measured; see push_mcc.py).
-    kernel_loop: str = "while"     # "while" (skip-capable) | "fori"
-    # Fused-kernel tile = sublanes x 128.  A/B on the chip (2026-08):
-    # 16 -> 93.5 ms, 32 -> 64.4, 64 -> 54.5, 128 -> 42.6 per 1M x T=100
-    # sweep; 256+ exceeds VMEM.
-    kernel_sublanes: int = 128
     # Threefry-2x32 rounds for the per-step draws.  13 is the
     # BigCrush-passing minimum with margin (Salmon et al., SC'11); 20 is the
     # library-conservative choice.  All engines share the value, so any
     # choice is self-consistent and deterministic.
     rng_rounds: int = 13
     # Draw protocol (rng.step_draws_mode): "perstep" = one Threefry block
-    # per (particle, mobility step) — the round-1..3 stream; "block2" = one
-    # block per step PAIR (u's from the two output words, child ids from
-    # disjoint mixes; rng.pair_draws).  With the worklog engine's unrolled
-    # T-loop (worklog_unroll=2) block2 halves the cipher rate — the cipher
-    # is most of the ~16 ms/step physics floor (DESIGN.md).  Any fixed
-    # choice is deterministic and cadence-independent; the canonical sweep
-    # artifact pins "perstep" as its provenance (benchmarks.py).
-    # Default flipped to "block2" after the ab_r3d chip A/B (2026-08-18):
-    # block2+unroll2 1.121e9 vs base 1.065e9 pushes/s (+5.3%), all
-    # cadences oracle-equal within the mode (tests/test_rng_modes.py).
+    # per (particle, mobility step); "block2" = one block per step PAIR
+    # (u's from the two output words, child ids from disjoint mixes;
+    # rng.pair_draws).  Any fixed choice is deterministic and
+    # cadence-independent (tests/test_rng_modes.py); the canonical sweep
+    # pins "perstep" (benchmarks.py).
     rng_mode: str = "block2"
-    # Worklog T-loop steps per fori_loop iteration (1, 2, 4 or 8).  2 halves
-    # the loop-carry VMEM round-trips (the measured dominant spill cost)
-    # and enables the pair-fused cipher under rng_mode="block2"; 4 halves
-    # the carry traffic again at the cost of extra live registers;
-    # bit-identical physics for every value at fixed rng_mode.
-    # Default flipped to 4 after the ab_r3h chip A/B (2026-08-19):
-    # 1.157e9 vs 1.136e9 pushes/s at the bench point, better late windows
-    # too; confirmed twice (ab_r3f saw 1.142 vs 1.116).
-    worklog_unroll: int = 4
-    # Fast-append window for the staged engine: per-sweep spawns up to this
-    # count take the windowed gather+dynamic_update_slice path.
-    # 0 = auto (max(1M, capacity/4)).
-    append_window: int = 0
-    # Work-log engine: rows (of 128 lanes) per ping-pong work log.
-    # 0 = auto (half the capacity, at least one tile).
-    worklog_rows: int = 0
-    # Work-log start segments: children/suspended records route to one of
-    # this many log segments by the step they first execute, so each
-    # next-pass tile holds start-homogeneous lanes and its T-loop skips the
-    # dead span before their starts (slot efficiency 0.341 -> 0.418
-    # measured by scripts/analyse_probe_structure.py at the bench point).
-    # 1 = single mixed log (the round-2 behavior).
-    worklog_start_buckets: int = 1
-    # Work-log sweep HORIZON: each tile advances at most this many mobility
-    # steps per pass (upper = min(t0 + K - 1, T)); still-live lanes re-emit
-    # as suspended work (resume = upper + 1) through the existing packing.
-    # Bounds POST-DEATH idle slots at K-1 (a dead lane otherwise burns
-    # T - death_step slots: scripts/probe_horizon.py measured 45% of all
-    # swept slots at the bench point).  Requires worklog_start_buckets > 1
-    # to be effective — routing switches to MODULAR WINDOWS of width K
-    # (segment = ((start-2)//K) mod n_seg), which keeps within-segment
-    # start spread <= K at ANY T.  Emissions concentrate into ~2 windows
-    # per pass, so the auto work-log sizing grows by n_seg (memory!).
-    # 0 = off (sweep to T, the round-2/3 behavior).
-    worklog_horizon: int = 0
-    # Align horizon windows to the global step grid (upper = end of t0's
-    # window) so resumes cluster exactly at window boundaries: fewer idle
-    # slots (probe: 0.542 -> 0.619 at K=32/4 segments), a few more passes.
-    worklog_align: bool = False
-    # polythresh|staticthresh|staticfull|staticguard|statichybrid|band0|
-    # pipeband|threshold|needband|minmax (+ staticthresh_noties/_noover/
-    # _floor2, polythresh_floor and probeconst — TIMING PROBES, wrong
-    # physics, never production).  polythresh (the r3i default, +10% over
-    # staticthresh: ab_r3h 1.25-1.26e9 vs 1.13e9, bit-exact final_n)
-    # replaces the chunk-swept threshold gathers with a per-chunk
-    # polynomial fit of the exact 24-bit thresholds — degree+1 single-row
-    # lane-LUTs + Horner + one packed margin gather; measured margins
-    # route rare boundary lanes to the exact f32 fallback, so outcomes are
-    # bit-exact for any table (push_mcc.pack_poly_thresholds).
-    lookup_mode: str = "polythresh"
-    lookup_static_chunks: int = 8   # static-unroll coverage for static* modes
-    # polythresh fit degree.  2 is a measured optimum: each extra degree
-    # adds one row-gather + fma to the spill-bound T-loop and loses 9-30%
-    # (deg3 1.13e9, deg4 0.80e9); deg1's fit window (chunks 1..2) is too
-    # narrow and pays the fallback every step (0.96e9).
-    lookup_poly_degree: int = 2
-    # Candidate gate for the polythresh fallback (EXACT for any table): a
-    # lane whose 24-bit draw payload >= the table's global max total
-    # threshold can never collide, and the raw margin compares already
-    # decide it — so tie/escapee lanes only enter the exact fallback sweep
-    # on steps where their draw is a live candidate (a max(split+remove)
-    # = ~10% fraction for the bundled sine table).  One scalar compare +
-    # and per step; attacks the late-window fallback-trip cost.
-    # Default flipped ON after the r4a chip A/B (2026-08-20): 1.286e9 vs
-    # base 1.265e9 best window, and BETTER at every window — the late
-    # windows gain most (1.13 vs 1.06, 0.99 vs 0.92: +7-8%), confirming
-    # the fallback-trip attribution; final_n bit-exact.
-    lookup_cand_gate: bool = True
-    # Pack the two higher-power polythresh coefficients (bf16-rounded at
-    # pack time) as 16-bit halves of one i32 row: 4 table-aux gathers per
-    # step instead of 5 (the r4 probe ladder prices the poly path's
-    # gathers at ~37% of the spill-bound loop).  EXACT for any table —
-    # margins are measured against the same rounded evaluation the kernel
-    # reconstructs; the rounding only widens the measured margins (sine
-    # table: delta_t 567 -> 922, still ~0.006% of the 24-bit domain).
-    # degree 2 only.  Default flipped ON after the r4d chip A/B
-    # (2026-08-20, twice): 1.322e9 (reproduced to 4 digits) vs base
-    # 1.284-1.298e9, better at EVERY window incl. late ones — the first
-    # exact engine past the old st_floor2 probe ceiling (1.31e9);
-    # final_n bit-exact.  Applies to degree 2 only; at any other
-    # lookup_poly_degree the engines auto-disable the pack (the flag is
-    # ignored), so degree sweeps work with the default on (ADVICE r4).
-    lookup_poly_pack: bool = True
-    # Round-5 gather rung: fold the margin row INTO the a0 row — a0
-    # quantized to 23 bits (units of 4, bias 2^21: the kernel's q*4 - 2^21
-    # reconstruction is exact integer f32 arithmetic) with the freed low
-    # byte carrying ONE shared margin as an f32 exponent byte
-    # (delta = 2^(e-127), rebuilt by a shift+bitcast, no gather) — the
-    # polythresh path pays 3 aux gathers per mobility step instead of 4.
-    # EXACT for any table: margins are measured against the quantized
-    # evaluation at pack time and only ever widen (shared max, rounded up
-    # to a power of two), which moves lanes into the exact fallback, never
-    # changes a decided outcome.  Requires lookup_poly_pack + degree 2
-    # (auto-disabled otherwise).  Default decided by the r5 chip A/B:
-    # LOST (1.301 vs 1.323e9 best, late window 0.959 vs 0.999) — the
-    # shared power-of-two margins buy more fallback trips than the saved
-    # gather returns.  Kept as a flag with full oracle/soundness coverage.
-    lookup_margin_fold: bool = False
-    # Fit-quality cap (in 24-bit threshold counts) deciding how far the
-    # polythresh fitted window extends (push_mcc.pack_poly_thresholds).
-    # The r3i value 1024 fits sine chunks 1..10 with tight margins; the
-    # late-window escapee attack (r5) raises it so chunks 11..22 join
-    # with FAT-but-sound margins (up to ~52k of 2^24) — an escapee lane
-    # trips the fallback on every candidate draw (~9% of lane-steps),
-    # a fat-margin fitted lane only inside the margin (~0.6%), so window
-    # width beats margin tightness once the population heats past chunk
-    # 10.  The 16-bit margin field is a hard representability ceiling
-    # enforced regardless of this cap (a clipped margin would be
-    # unsound).  Margins stay measured; exactness is unconditional.
-    # Default flipped 1024 -> 60000 after the r5b/r5c chip A/Bs
-    # (2026-08-20): best window ties base (1.313/1.319 vs 1.311e9) but
-    # the late windows jump +4% and +15% (window 3: 1.15 vs 1.00e9), the
-    # exact late-window escapee cost the r4 probe ladder isolated;
-    # final_n bit-exact.  (wide+mfold re-tested and still loses.)
-    lookup_poly_err_cap: float = 60000.0
-    # Polythresh fit objective: "lsq" (one static-pinv matmul) or
-    # "minimax" (Lawson IRLS, 40 batched reweighted-LSQ iterations at
-    # pack time) — the margin IS the max fit error, so minimizing the
-    # max instead of the L2 norm shrinks every measured margin ~1.4-2x
-    # (sine chunk 20: 20503 -> 13133) and extends the fitted window two
-    # more chunks before the 16-bit ceiling, at zero kernel cost.
-    # Margins stay measured; exactness is unconditional either way.
-    # Default stays "lsq": the r5d/e/f chip A/B ladder measured minimax
-    # at 0.81 / 1.02 / 1.21e9 vs base 1.31e9 (bit-exact final_n each
-    # time) across three implementations (lax.fori_loop + LU custom
-    # call; + closed-form Cramer solve; fully unrolled straight-line) —
-    # the fit is traced INTO the engines' jitted programs (they take the
-    # raw table as the jit argument) and its work demonstrably does not
-    # get hoisted/amortized, swamping the real margin win (1.4-2x
-    # tighter, see the soundness test).  The principled fix is packing
-    # the aux table ONCE at the host boundary and passing it in — an
-    # engine-protocol change left as future work.
-    lookup_poly_fit: str = "lsq"
-    # Wave-unroll width for the staticthresh-family DYNAMIC tail sweeps
-    # (the over-tail and the exact tie fallback).  A per-chunk dynamic
-    # fori_loop trip costs ~2x a static visit because the loop-carried
-    # (S, L) accumulators round-trip VMEM every iteration; waves unroll W
-    # visits per trip (traced row offsets, rows clamped, padding visits
-    # select nothing) so the carry round-trips 1/W as often.  Values are
-    # identical for any W.  0 = per-chunk loop (round-2/3 behavior).
-    lookup_tail_waves: int = 0
-    # Threshold-family lookups return decided booleans instead of f32
-    # pseudo-chances (make_chunked_lookup(hits=True)): bit-identical
-    # outcomes, ~4 fewer vector ops per mobility step in the worklog
-    # engine's spill-bound T-loop.  Ignored by non-threshold modes and by
-    # the staged engine (which degrades aux modes to band0).
-    lookup_hits: bool = False
-    # Skip the worklog T-loop's child-staging selects+stores (7 fields x
-    # spawn_depth per step) behind a per-step ``any(spawn)`` branch.  The
-    # canonical workload spawns rarely (net +3.6k over 200 steps at 1M
-    # particles), so most tile-steps pay only the scalar reduce.
-    # Bit-identical either way; off until the on-chip A/B records a win.
-    worklog_spawn_guard: bool = False
     # Physics model selections (models/integrator.py, models/collisions.py):
     # integrator: "leapfrog" (reference parity) | "boris" (zero-B Boris push)
     # collision_model: "reverse" (reference: parent velocity flips) |
@@ -252,32 +85,27 @@ class SimConfig:
     # One-hot factorization of the bbox deposit histogram: counts laid out
     # (S^3/lanes, lanes).  The one-hot build cost is (R + lanes) elements
     # per particle (near-square splits minimize it); MACs are invariant.
-    # Chip-measured at the bench point (scripts/microbench_mxu_hist.py +
-    # ab_r3b h256): 256 deposits 16% faster than the round-3 128 layout
-    # (9.45 vs 11.24 ms standalone) and lifts the engine A/B to 1.126e9
-    # pushes/s (base 1.114).  int8 one-hots and tile_p changes: no win.
     bbox_hist_lanes: int = 256
     # Live-prefix chunking for the field phase (ops/grid.py): the deposit
     # histogram and the packed-diff gather run over the whole working
-    # prefix w, but compaction keeps every live particle in [0, n) and at
-    # the bench point n is only ~35-50% of w — splitting the particle axis
-    # into this many chunks and lax.cond-skipping chunks past n skips the
-    # dead majority's MXU tiles and gather rows.  Bit-exact for any value
+    # prefix w, but compaction keeps every live particle in [0, n), so
+    # splitting the particle axis into this many chunks and
+    # lax.cond-skipping chunks past n skips the dead tail's histogram tiles
+    # and gather rows.  Bit-exact for any value
     # (skipped lanes are dead, whose deposit weight is 0 and whose gathered
     # acc is masked to 0 anyway; tests/test_grid.py).  0 disables.
     grid_live_chunks: int = 0
     # Full-grid deposition strategy when the population does NOT fit the
     # bbox window (periodic/thermal extensions — the reference workload
-    # never leaves its seed cube): "scatter" is the XLA .at[].add histogram
-    # (~74M updates/s floor); "sorted" sorts the flat cell ids (values-only
-    # bitonic, not scatter-bound) and MXU-histograms each sorted tile into
-    # a small grid window (ops/grid.deposit_sorted) — identical counts,
-    # with a lax.cond scatter fallback for pathologically sparse tiles.
+    # never leaves its seed cube): "scatter" is the XLA .at[].add histogram;
+    # "sorted" sorts the flat cell ids and one-hot-histograms each sorted
+    # tile into a small grid window (ops/grid.deposit_sorted) — identical
+    # counts, with a lax.cond scatter fallback for pathologically sparse tiles.
     full_deposit: str = "scatter"
     # Multi-chip field-phase strategy (parallel/sharded.py): "replicated"
     # psums the per-shard deposit grid; "slab" shards the bbox subgrid into
-    # x-slabs (psum_scatter + ppermute halo exchange + all_gather rows) —
-    # the mesh>8 growth path (1/n grid memory, ~half the collective bytes).
+    # x-slabs (psum_scatter + ppermute halo exchange + all_gather rows):
+    # 1/n of the grid memory per device.
     grid_mode: str = "replicated"
 
     @property
@@ -297,5 +125,4 @@ SCHEDULER_MODES = {
     "30": "dynamic",
     "31": "sync",
     "32": "naive",
-    "33": "dynamic_old",
 }

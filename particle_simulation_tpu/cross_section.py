@@ -10,8 +10,8 @@ Reference behavior reproduced bit-for-bit:
   * the bundled table is the sine-modulated one generated by
     cross_section_gen.py:3-10.
 
-On device the table is a (N_STEPS, 2) float32 array; the fused Pallas engine
-keeps it resident in VMEM (80 KB).
+On device the table is a (N_STEPS, 2) float32 array (80 KB); the Pallas
+engine gathers from it directly, so it stays resident in the GPU's L2.
 """
 
 from __future__ import annotations

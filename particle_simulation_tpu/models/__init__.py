@@ -29,8 +29,8 @@ Collision models (``SimConfig.collision_model``):
 One uniform draw per particle-step is tested against energy-bucketed
 (split, absorb) chances; energy = |v|^2, log10 bucketing over [1e-6, 1e16)
 into 10000 buckets (reference src/particle_move.cu:55-80,
-src/cross_section.cu).  Tables are data (cross_section.py); the TPU
-engines keep them VMEM-resident.  On ionization the models differ in how
+src/cross_section.cu).  Tables are data (cross_section.py); every engine
+gathers from the same (N, 2) table.  On ionization the models differ in how
 momentum is distributed:
 
 * ``reverse`` (default) — the reference's model: the child is a copy of
@@ -68,8 +68,8 @@ Field models (``SimConfig.field_model``):
   (src/grid_operations.cu); not a true Poisson solve, kept for parity.
   The f32 production path packs the three integer stencil diffs into one
   i32 grid and gathers once per particle
-  (ops/grid.gather_acceleration_packdiff, bit-identical and fastest
-  measured); gather_acceleration_packed keeps the (cells, 3) row-gather
+  (ops/grid.gather_acceleration_packdiff, bit-identical);
+  gather_acceleration_packed keeps the (cells, 3) row-gather
   variant, and the fused per-particle path (gather_acceleration) serves
   f64 oracle runs.
 * ``fft`` — a true spectral Poisson solve (models/poisson_fft.py), the

@@ -2,8 +2,8 @@
 
 The reference's ``updateGrid`` is a local neighbour-difference approximation,
 not a real Poisson solve (src/grid_operations.cu:29-56; SURVEY.md §2.1
-"Grid (field) ops").  BASELINE.json's north star names the true solve as the
-upgrade path: deposition -> FFT Poisson -> field gather, all under jit.
+"Grid (field) ops").  This model is the true solve as the upgrade path:
+deposition -> FFT Poisson -> field gather, all under jit.
 
 Model (periodic boundary conditions):
     lap(phi) = -rho / eps0,        E = -grad(phi),      a = (q_e / m_e) E
@@ -18,8 +18,8 @@ rho is the deposited electron count per cell times e / cell_volume
 (charge density); with e < 0 the field pushes electrons apart, consistent
 in sign with the reference's repulsive Electric_Force_Constant model.
 
-Everything is real-to-complex FFT on the 3-D grid — an MXU/VPU-friendly
-dense transform (XLA lowers FFTs natively on TPU).
+Everything is real-to-complex FFT on the 3-D grid — a dense transform that
+XLA lowers to the platform's FFT library (cuFFT on the GPU).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Reference (src/grid_operations.cu):
   * particlesToGrid: each particle atomically adds +1 to its cell's charge
-    count (:15-26).  TPU equivalent: one vectorized scatter-add histogram —
+    count (:15-26).  Here: one vectorized scatter-add histogram —
     no atomics needed, XLA guarantees deterministic accumulation.
   * updateGrid + gridToParticles: per-cell acceleration = (charge[+1] -
     charge[-1]) per axis * Electric_Force_Constant with missing neighbours
@@ -48,12 +48,12 @@ def deposit(pos, weight, cell_size, grid_size):
 
 def deposit_sorted(pos, weight, cell_size, grid_size,
                    window_rows=512, tile_p=2048):
-    """Full-grid deposition OFF the XLA scatter floor for SPREAD populations
-    (VERDICT r4 #7): sort the flat cell ids, then histogram each sorted
-    particle tile into a small MXU one-hot WINDOW of the grid and
+    """Full-grid deposition without the XLA scatter for SPREAD populations:
+    sort the flat cell ids, then histogram each sorted
+    particle tile into a small one-hot matmul WINDOW of the grid and
     accumulate windows with sequential dynamic-slice adds.
 
-    Why this shape: a one-hot MXU histogram over the whole grid costs
+    Why this shape: a one-hot matmul histogram over the whole grid costs
     n * num_cells MACs for ANY factorization (the result size times n), so
     it cannot scale past the bbox window — but after a values-only
     ``lax.sort`` (bitonic: dense compare-exchange, NOT scatter-bound) each
@@ -71,15 +71,10 @@ def deposit_sorted(pos, weight, cell_size, grid_size,
     deposit lax.cond-falls back to the scatter path — values identical
     either way (tests/test_grid.py::test_deposit_sorted_*).
 
-    Measured on the chip (r5, uniform spread over 256^3; defaults are the
-    best of the (window_rows, tile_p) sweep): 10.4 ms at 1M (scatter:
-    15.0) and 30.7 ms at 4M (scatter: 45.3) — 90/130M updates/s, a
-    1.35-1.5x win that is SORT-FLOOR-BOUND: the values-only bitonic sort
-    is 6.3 ms of the 10.4 (measured), and any grouping-based deposit
-    pays it, while a dense MXU histogram without grouping pays
-    n * num_cells MACs regardless of factorization (~80 ms at 1M/256^3).
-    So ~1.5x, improving with n, is the honest ceiling of this design
-    family; bigger wins need the scatter floor itself to move.
+    Any grouping-based deposit pays the sort, while a dense one-hot
+    histogram without grouping pays n * num_cells MACs regardless of
+    factorization.  Its time against the scatter on the GPU is not
+    measured yet.
 
     Reference: particlesToGrid's atomic adds
     (/root/reference/src/grid_operations.cu:15-26).
@@ -176,10 +171,8 @@ def gather_acceleration_packed(charge_flat, pos, weight, cell_size, grid_size,
     acceleration grid with shifted slices (pure bandwidth, vectorized) then
     ONE packed (n, 3) row gather.
 
-    Measured on the chip (2026-08): the fused path does 6 random gathers of
-    (n,) each (~47 ms at 1M/256^3, ~3.9 s at 5e7/512^3); this path does one
-    ~12-byte-row gather (~2x faster) at the cost of a transient
-    (cells, 3) f32 grid.
+    The fused path does 6 random gathers of (n,) each; this path does one
+    ~12-byte-row gather at the cost of a transient (cells, 3) f32 grid.
     """
     gx, gy, gz = grid_size
     acc_grid = field_grid(charge_flat, grid_size, e_const).reshape(-1, 3)
@@ -225,9 +218,8 @@ def gather_acceleration_packdiff(charge_flat, pos, weight, cell_size,
     (cells, 3) row gather — same values — in the (physically wild) case that
     some |diff| exceeds the 10-bit field.
 
-    Measured at 1M/256^3 (2026-08-16): 15.9 ms end-to-end vs 18.7 ms for the
-    row-gather path; the win is the packed grid being 1/3 the bytes of the
-    (cells, 3) f32 grid on both the build and the gather side.
+    The packed grid is 1/3 the bytes of the (cells, 3) f32 grid on both
+    the build and the gather side.
     """
     dx, dy, dz = _int_diffs(charge_flat, grid_size)
     idx = cell_indices(pos, cell_size, grid_size)
@@ -267,7 +259,7 @@ def gather_acceleration_packdiff(charge_flat, pos, weight, cell_size,
 
 
 # ---------------------------------------------------------------------------
-# Bounding-box subgrid field phase (round 3).
+# Bounding-box subgrid field phase.
 #
 # Physics: with mobility dt = 1e-12 s and cell size 1e-2 m, a particle moves
 # one cell only at |v| >= 1e10 m/s — so the live population effectively never
@@ -277,13 +269,12 @@ def gather_acceleration_packdiff(charge_flat, pos, weight, cell_size,
 # streams the whole grid, and the gather reads it back — while all live
 # cells fit in a 64^3 (1 MB) box.
 #
-# Design (all measured on the chip, see scripts/microbench_bbox.py):
+# Design:
 #   * bbox = min/max cell over live particles (cheap reduction);
-#   * deposit into the S^3 subgrid via an MXU one-hot matmul histogram:
+#   * deposit into the S^3 subgrid via a one-hot matmul histogram:
 #     counts(R=S^3/128, 128) = sum over particle tiles of
-#     onehot_row^T @ onehot_lane (bf16 inputs, f32 accumulate) — beats the
-#     XLA scatter floor (74M updates/s) because the scatter's sequential
-#     per-update loop becomes dense MXU work;
+#     onehot_row^T @ onehot_lane (bf16 inputs, f32 accumulate, so exact) —
+#     the scatter's per-update loop becomes dense matmul work;
 #   * stencil + pack + gather reuse the existing packed-diff machinery on
 #     the tiny subgrid;
 #   * a lax.cond falls back to the full-grid path whenever the bbox does
@@ -316,7 +307,7 @@ def _mxu_histogram(flat, num_cells, tile_p=1024, lanes=128, n_live=None):
     touches (R + lanes) elements per particle — minimized at the square
     split R = lanes = sqrt(num_cells) — while the MAC count (n * num_cells)
     is factorization-invariant.  At 64^3 the square 512x512 split builds
-    1024 elems/particle vs 2176 for 2048x128 and gives the MXU N=512.
+    1024 elems/particle vs 2176 for 2048x128 and gives the matmul N=512.
 
     ``n_live`` (traced scalar, optional): every id at slot >= n_live is
     known dead (-1); tiles whose start lies past it lax.cond-skip their

@@ -1,8 +1,8 @@
 """Per-particle physics: leapfrog push, bounds kill, Monte-Carlo collision.
 
 One shape-polymorphic implementation over separate component arrays, shared
-verbatim by the vectorized pure-JAX path (ops/step.py) and the fused Pallas
-engine (ops/pallas/push_mcc.py) so both are bit-exact.
+verbatim by the vectorized pure-JAX path (ops/step.py) and the Pallas engine
+(ops/gpu_engine.py) so both are bit-exact.
 
 Reference semantics reproduced:
   * leapfrog kick-drift-kick with v MINUS a*dt/2 (the reference's sign
@@ -115,10 +115,10 @@ def make_kick(integrator: str, acc, dt, fdt, b_field=None):
     acceleration: a*dt/2 per leapfrog half-kick, a*dt for boris.
 
     The acceleration never changes inside a mobility phase, so these
-    products are loop constants; the fused kernels compute them ONCE before
-    the T-loop (the loop body is VMEM-bandwidth-bound — see worklog.py) and
-    pass them via ``update_particles(kick=...)``.  The expression matches
-    the in-place computation op for op, so hoisting is bit-exact.
+    products are loop constants; the Pallas engine computes them ONCE
+    before its T-loop and passes them via ``update_particles(kick=...)``.
+    The expression matches the in-place computation op for op, so hoisting
+    is bit-exact.
 
     ``b_field`` (SimConfig.b_field: the signed cyclotron vector Ω = qB/m,
     rad/s) selects the finite-B boris variant: the return becomes the
@@ -144,9 +144,9 @@ def out_of_bounds(p: Particles, sim_size) -> jnp.ndarray:
     zero = jnp.zeros((), p.px.dtype)
     if sim_size[0] == sim_size[1] == sim_size[2]:
         # cubic domain (the reference's, src/cell.h:5-7): fold the six
-        # compares into min/max reductions — 4 fewer vector ops in the
-        # fused kernels' spill-bound T-loop.  Exact for finite coords
-        # (min < 0 iff any coord < 0, max >= s iff any coord >= s).  NaN
+        # compares into min/max reductions — 4 fewer vector ops per step.
+        # Exact for finite coords (min < 0 iff any coord < 0, max >= s iff
+        # any coord >= s).  NaN
         # caveat: a NaN coordinate poisons min/max, so a particle with one
         # NaN and one genuinely-out-of-bounds coordinate is kept where the
         # per-coordinate form would remove it — both forms keep all-NaN
@@ -205,24 +205,15 @@ def update_particles(
     collision_model: str = "reverse",
     kick=None,
     boundary: str = "absorb",
-    draws=None,
 ) -> StepResult:
     """One mobility step for every lane; inactive lanes pass through.
 
-    ``table_lookup(energy, u, bits) -> (split, remove)`` is injected so the
-    pure-JAX path can use XLA gather while the Pallas engine substitutes its
-    VMEM lookup; when ``split_chance``/``remove_chance`` are given
-    (pre-gathered) the callable may be None.  ``u`` (the collision draw) and
-    ``bits`` (its raw payload) let a lookup return ANY values that preserve
-    the two comparison outcomes below — e.g. (0, 0) for a lane that provably
-    cannot collide, or (101, 0) for one that provably splits (u < 100).
+    ``table_lookup(energy) -> (split, remove)`` is injected so the pure-JAX
+    path and the Pallas engine each gather from the table their own way;
+    when ``split_chance``/``remove_chance`` are given (pre-gathered) the
+    callable may be None.
 
-    ``rng_mode`` selects the draw protocol (rng.step_draws_mode); ``draws``
-    optionally injects a precomputed (u, child_hi, child_lo) triple for this
-    step — the worklog engine's unrolled T-loop computes one pair block for
-    two steps (rng.pair_draws) and feeds each half here, skipping the
-    per-step cipher.  Injected draws MUST equal what step_draws_mode would
-    return (the cadence-equivalence tests enforce it end to end).
+    ``rng_mode`` selects the draw protocol (rng.step_draws_mode).
 
     ``integrator``/``collision_model``/``boundary`` are static model
     selections (SimConfig fields), shared by every engine so cadence
@@ -241,39 +232,19 @@ def update_particles(
         in_dom = active & ~oob
         oob_kill = active & oob
 
-    if draws is not None:
-        u, child_hi, child_lo = draws
-    else:
-        u, child_hi, child_lo = rng.step_draws_mode(
-            rng_mode, seed, p.id_hi, p.id_lo, poisson_step, t, 0.0, 100.0,
-            rounds=rng_rounds,
-        )
+    u, child_hi, child_lo = rng.step_draws_mode(
+        rng_mode, seed, p.id_hi, p.id_lo, poisson_step, t, 0.0, 100.0,
+        rounds=rng_rounds,
+    )
     # Lookup energies are gated to ACTIVE lanes: inactive lanes' chances are
     # multiplied out below, and zeroing their energy pins them to table
-    # bucket 0 — in the fused kernel the chunk-band sweep then only spans
-    # the chunks of lanes that can actually collide (stale dead/suspended
-    # lanes' frozen energies otherwise triple the swept band: measured
-    # ~13 vs ~4.6 chunks at the bench point, 3.4 ms per chunk visit).
+    # bucket 0, so a stale lane never reads a far row of the table.
     energy = jnp.where(active, collision_energy(moved), 0.0)
-    if table_lookup is not None and getattr(table_lookup, "returns_hits", False):
-        # boolean protocol (make_chunked_lookup(hits=True)): the lookup
-        # already decided both comparisons exactly in integer space — skip
-        # the f32 pseudo-chance round-trip (saves ~4 vector ops per step in
-        # the fused kernels' spill-bound T-loop)
-        bits = child_lo ^ jnp.uint32(rng.GOLDEN)
-        s_hit, t_hit = table_lookup(energy, u, bits)
-        splits = in_dom & s_hit
-        dies_mcc = in_dom & ~splits & t_hit
-    else:
-        if table_lookup is not None:
-            # the raw draw payload (step_draws returns b0 ^ GOLDEN as
-            # child_lo) lets threshold-mode lookups decide comparisons in
-            # integer space
-            bits = child_lo ^ jnp.uint32(rng.GOLDEN)
-            split_chance, remove_chance = table_lookup(energy, u, bits)
-        u = u.astype(split_chance.dtype)
-        splits = in_dom & (u < split_chance)
-        dies_mcc = in_dom & ~splits & (u < split_chance + remove_chance)
+    if table_lookup is not None:
+        split_chance, remove_chance = table_lookup(energy)
+    u = u.astype(split_chance.dtype)
+    splits = in_dom & (u < split_chance)
+    dies_mcc = in_dom & ~splits & (u < split_chance + remove_chance)
     dies = dies_mcc if oob_kill is None else oob_kill | dies_mcc
     t_i32 = jnp.asarray(t, jnp.int32)
 
@@ -281,9 +252,9 @@ def update_particles(
         # reference model: child = copy of the post-push parent, parent
         # velocity reverses (src/particle_move.cu:62-74)
         child_v = (moved.vx, moved.vy, moved.vz)
-        flip = jnp.where(
-            splits, -jnp.ones((), moved.vx.dtype), jnp.ones((), moved.vx.dtype)
-        )
+        fdt = moved.vx.dtype
+        # literal -1 (not a negated constant, which Triton cannot lower)
+        flip = jnp.where(splits, jnp.asarray(-1.0, fdt), jnp.asarray(1.0, fdt))
     elif collision_model == "isotropic":
         # child emitted isotropically at the parent's speed (direction drawn
         # deterministically from the child's own genealogy id bits), parent
@@ -305,10 +276,10 @@ def update_particles(
         raise ValueError(f"unknown collision model {collision_model!r}")
 
     # Child fields are only meaningful on ``spawn`` lanes: every consumer
-    # (stage-by-depth selection in the fused kernels, compaction-gather in
-    # population.append_children) selects by the spawn mask, so non-spawn
-    # lanes carry unmasked per-step values here instead of paying three
-    # (S, L) selects per mobility step in the VMEM-bandwidth-bound T-loop.
+    # (the engine's masked append, population.append_children's
+    # compaction-gather) selects by the spawn mask, so non-spawn lanes carry
+    # unmasked per-step values here instead of paying three selects per
+    # mobility step.
     child = moved._replace(
         vx=child_v[0],
         vy=child_v[1],

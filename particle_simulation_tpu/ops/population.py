@@ -3,15 +3,15 @@ dead-particle compaction.
 
 The reference needs four CUDA schedulers + warp-ballot stream compaction
 (src/pic.cu:19-357) because it mutates a shared work queue inside kernels.
-XLA's functional model replaces all of that with data-parallel primitives,
-chosen by measurement on TPU (v5 lite):
+XLA's functional model replaces all of that with data-parallel primitives:
 
-  * stable radix sort is fast (argsort: 35 ms @ 2M, 65 ms @ 16M) while both
-    scatter (~250 MB/s) and searchsorted (>1 s) are pathologically slow;
-  * so stream compaction = stable argsort on the keep-mask + monotone
+  * stream compaction = stable argsort on the keep-mask + monotone
     gather (`.at[idx].get(indices_are_sorted=True)`), and spawn append =
-    the same compaction of the staged-children domain, landing in slots
+    the same compaction of the spawned-children domain, landing in slots
     [n, n+k) in source order.
+
+(The dynamic engine, ops/gpu_engine.py, appends through atomic counters
+instead and needs none of this inside its kernels.)
 
 Semantics preserved from the reference:
   * children land in slots [n, n+k) in source order; children beyond
@@ -46,7 +46,7 @@ def compaction_perm(mask):
 
 
 def _sorted_take(arr, idx, unique=False):
-    """Gather with genuinely non-decreasing indices (fast path on TPU).
+    """Gather with genuinely non-decreasing indices.
 
     Callers must sanitize idx to be non-decreasing — the flags are promises
     to XLA, not hints.
@@ -116,8 +116,8 @@ def append_children(state: SimState, spawn, child: Particles) -> SimState:
 
 
 def append_from(state: SimState, valid, fields: Particles) -> SimState:
-    """Pull valid entries from staged component arrays (any size >= 1) into
-    slots [n, n+k), in staged order.  Gather/sort-only, no scatter."""
+    """Pull valid entries from component arrays (any size >= 1) into slots
+    [n, n+k), in source order.  Gather/sort-only, no scatter."""
     c = state.capacity
     s_dom = valid.shape[0]
     perm, k = compaction_perm(valid)
@@ -156,139 +156,6 @@ def append_from(state: SimState, valid, fields: Particles) -> SimState:
         status=merge1(state.status, fields.status),
         id_hi=merge1(state.id_hi, fields.id_hi),
         id_lo=merge1(state.id_lo, fields.id_lo),
-        n=state.n + k,
-    )
-
-
-def _append_plan(valid, n, dest_domain, capacity):
-    """(is_new, src_for_dest, k): destination-side gather plan placing the
-    valid staged entries at slots [n, n+k) of a dest_domain-sized array,
-    dropping (but counting) entries beyond ``capacity``."""
-    s_dom = valid.shape[0]
-    perm, k = compaction_perm(valid)
-    slot = jnp.arange(dest_domain, dtype=jnp.int32)
-    dest_rank = slot - n
-    is_new = (dest_rank >= 0) & (dest_rank < k) & (slot < capacity)
-    src = _sorted_take(
-        perm,
-        jnp.minimum(jnp.arange(dest_domain, dtype=jnp.int32), s_dom - 1),
-        unique=s_dom >= dest_domain,
-    )
-    src = src[jnp.clip(dest_rank, 0, dest_domain - 1)]
-    src_for_dest = jnp.where(
-        dest_rank < 0, 0, jnp.where(is_new, src, s_dom - 1)
-    )
-    return is_new, src_for_dest, k
-
-
-def append_packed_flat(fields, n, valid, packed_i32, capacity, window=1 << 20):
-    """Append staged children into component arrays kept in the fused
-    engine's (rows, 128) field layout — no SimState round trip.
-
-    Fast path (spawn count k <= ``window``): gather only a (window, 12) row
-    block and write it contiguously at offset n with dynamic_update_slice —
-    the gather/merge cost scales with the window, not the capacity.  Slots
-    in [n+k, n+window) are rewritten as zeros, which is exactly the EMPTY
-    invariant those slots already satisfy; entries that would land at or
-    beyond ``capacity`` are zeroed too (dropped but counted — reference
-    overflow semantics).  The destination arrays must carry >= window slots
-    of padding beyond ``capacity`` so the slice never clamps onto real data
-    (mobility_phase_dynamic sizes the padding accordingly).
-
-    Slow path (k > window): full-width destination-side gather.
-
-    ``fields`` is the 12-tuple in physics.Particles order; returns
-    (new_fields, new_n).
-    """
-    import jax.lax as lax
-
-    rows_shape = fields[0].shape
-    dest_domain = rows_shape[0] * rows_shape[1]
-    s_dom = valid.shape[0]
-    perm, k = compaction_perm(valid)
-
-    def fast(_):
-        rank = jnp.arange(window, dtype=jnp.int32)
-        src = jnp.where(
-            rank < k,
-            _sorted_take(perm, jnp.minimum(rank, s_dom - 1)),
-            s_dom - 1,
-        )
-        rows = packed_i32.at[src].get(
-            indices_are_sorted=True, mode="promise_in_bounds"
-        )  # (window, 12)
-        keep = (rank < k) & (n + rank < capacity)
-        rows = jnp.where(keep[:, None], rows, 0)
-        out = []
-        for j, f in enumerate(fields):
-            col = lax.bitcast_convert_type(rows[:, j], f.dtype)
-            flat = lax.dynamic_update_slice(f.reshape(-1), col, (n,))
-            out.append(flat.reshape(rows_shape))
-        return tuple(out)
-
-    def slow(_):
-        is_new, src_for_dest, _k = _append_plan(valid, n, dest_domain, capacity)
-        rows = packed_i32.at[src_for_dest].get(
-            indices_are_sorted=True, mode="promise_in_bounds"
-        )
-        out = []
-        for j, f in enumerate(fields):
-            col = lax.bitcast_convert_type(rows[:, j], f.dtype)
-            out.append(jnp.where(is_new, col, f.reshape(-1)).reshape(rows_shape))
-        return tuple(out)
-
-    if window >= dest_domain:
-        return slow(None), n + k
-    new_fields = jax.lax.cond(k <= window, fast, slow, None)
-    return new_fields, n + k
-
-
-def append_packed(state: SimState, valid, packed_i32) -> SimState:
-    """Append from an (S, 12) int32-bitcast staged matrix in one row gather.
-
-    Column order matches physics.Particles field order (px..az f32-bitcast,
-    status, id_hi, id_lo).  Packing all fields into one matrix turns 12
-    separate big-domain gathers (~450 ms at the 16M staging domain) into a
-    single row gather (~60 ms measured).
-    """
-    import jax.lax as lax
-
-    c = state.capacity
-    s_dom = valid.shape[0]
-    perm, k = compaction_perm(valid)
-    slot = jnp.arange(c, dtype=jnp.int32)
-    dest_rank = slot - state.n
-    is_new = (dest_rank >= 0) & (dest_rank < k)
-    src = _sorted_take(
-        perm,
-        jnp.minimum(jnp.arange(c, dtype=jnp.int32), s_dom - 1),
-        unique=s_dom >= c,
-    )
-    src = src[jnp.clip(dest_rank, 0, c - 1)]
-    src_for_dest = jnp.where(
-        dest_rank < 0, 0, jnp.where(is_new, src, s_dom - 1)
-    )
-    rows = packed_i32.at[src_for_dest].get(
-        indices_are_sorted=True, mode="promise_in_bounds"
-    )  # (C, 12) i32
-
-    f32 = lambda cols: lax.bitcast_convert_type(cols, jnp.float32)
-
-    def merge3(old, cols):
-        return jnp.where(is_new[:, None], f32(cols).astype(old.dtype), old)
-
-    def merge1(old, col, dtype):
-        return jnp.where(
-            is_new, lax.bitcast_convert_type(col, dtype), old
-        )
-
-    return state._replace(
-        pos=merge3(state.pos, rows[:, 0:3]),
-        vel=merge3(state.vel, rows[:, 3:6]),
-        acc=merge3(state.acc, rows[:, 6:9]),
-        status=jnp.where(is_new, rows[:, 9], state.status),
-        id_hi=merge1(state.id_hi, rows[:, 10], jnp.uint32),
-        id_lo=merge1(state.id_lo, rows[:, 11], jnp.uint32),
         n=state.n + k,
     )
 
@@ -350,8 +217,8 @@ def reclaim(state: SimState):
 
     Unlike :func:`compact` (the Poisson-step-boundary compaction, which
     resets survivors to ALIVE), this runs INSIDE a mobility phase, where
-    statuses still carry meaning — spawn stamps (>0), suspension packs
-    (fused engines), ALIVE — so the status column is gathered like any
+    statuses still carry meaning — spawn stamps (>0), ALIVE — so the
+    status column is gathered like any
     other field.  Physics is invariant: draws are keyed by particle
     genealogy (rng.py), never by slot, and the final comparison is the
     sorted multiset, so removing dead rows early is unobservable except
@@ -360,10 +227,11 @@ def reclaim(state: SimState):
     no-reclamation path.
 
     The reference never does this (its 5e7-slot GPU container absorbs a
-    whole phase's cumulative appends, src/pic.cu:127-131); on this TPU the
-    canonical dynamic_old/naive T>=800 avalanche exceeds the largest
-    HBM-feasible bucket *cumulatively* while live population stays ~1M —
-    reclamation keeps the working bucket sized by LIVE particles.
+    whole phase's cumulative appends, src/pic.cu:127-131); the naive
+    cadence's cumulative appends at the canonical T>=800 avalanche can
+    exceed the largest bucket that fits in device memory while the live
+    population stays ~1M — reclamation keeps the working bucket sized by
+    LIVE particles.
 
     Returns (state, reclaimed) where reclaimed (i32) counts dropped rows.
     """

@@ -1,12 +1,13 @@
-"""Multi-chip particle sharding over an ICI mesh.
+"""Multi-device particle sharding over a 1-D device mesh.
 
 The reference is single-GPU/single-process (no MPI/NCCL anywhere — SURVEY.md
 §2.3, §5.8); its only scaling axis is particle count within one card.  This
-module is the framework's distributed story, built the TPU way:
+module is the framework's distributed story:
 
   * 1-D device mesh, axis ``dp``; particle arrays sharded along the capacity
-    axis; the charge grid computed per-shard then ``psum``-reduced over ICI
-    so every chip holds the full (replicated) field — deposition is
+    axis; the charge grid computed per-shard then ``psum``-reduced over the
+    interconnect (NVLink on a multi-GPU host) so every device holds the
+    full (replicated) field — deposition is
     position-indexed, not owner-computes, so particles never migrate;
   * spawn/append/compaction are shard-local (each shard owns a disjoint slot
     range and its own ``n``), so the mobility phase needs **zero**
@@ -23,9 +24,9 @@ module is the framework's distributed story, built the TPU way:
     (/root/reference/src/random.cu:3-5), which exist precisely to make the
     execution layout unobservable to the physics.
 
-Weak scaling: capacity and init_n are per-chip-multiplied; BASELINE.json's
-"Multi-chip v5p-8 weak scaling to 1e8 particles" config maps to
-``capacity_per_shard=12_500_000`` on 8 chips.
+Weak scaling: capacity and init_n are per-device quantities, multiplied by
+the mesh size for the global run (e.g. 1e8 particles over 8 devices is
+``capacity_per_shard=12_500_000``).
 """
 
 from __future__ import annotations
@@ -97,8 +98,8 @@ def _slab_subgrid_field(idx, weight, origin, config: SimConfig, n_dev: int):
     (the mesh>8 growth path, SURVEY.md §5.8):
 
       * global bbox via pmin/pmax (uniform across shards);
-      * per-shard MXU-histogram deposit on the S^3 subgrid, then ONE
-        ``psum_scatter`` so each chip holds only its summed x-slab
+      * per-shard one-hot-histogram deposit on the S^3 subgrid, then ONE
+        ``psum_scatter`` so each device holds only its summed x-slab
         (S/n_dev planes) — half the bytes of a full-grid all-reduce and
         1/n_dev of the grid memory per chip;
       * stencil on the slab with a ``ppermute`` halo exchange of one

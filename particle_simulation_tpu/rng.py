@@ -2,7 +2,7 @@
 
 The reference (src/random.cu:3-5) carries one 48-byte cuRAND XORWOW state per
 particle *slot* (seed 39587, sequence = slot index) so that physics is
-independent of which scheduler executes a particle.  On TPU we go further and
+independent of which scheduler executes a particle.  Here we go further and
 make physics independent of *slot assignment entirely*: every particle carries
 a 64-bit ``rng id`` derived from its genealogy —
 
@@ -17,8 +17,9 @@ unit test (src/test.cu:43-101) exists to check.
 
 The hash is the standard Threefry-2x32 block cipher (Salmon et al., SC'11),
 implemented here directly in uint32 jnp ops so the *same code* runs in traced
-JAX, inside Pallas TPU kernels, and on CPU — guaranteeing bit-exactness
-between the pure-JAX oracle path and the fused Pallas engine.
+JAX, inside the Pallas kernels (Triton on the GPU, the interpreter on the
+CPU) — guaranteeing bit-exactness between the pure-JAX oracle path and the
+Pallas engine.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def uniform_from_bits(bits, lo: float = 0.0, hi: float = 1.0):
     scales to [min, max)).
     """
     # uint32 -> int32 -> f32: values are < 2^24 so the int32 hop is lossless
-    # (and Mosaic TPU has no direct uint32->f32 cast).
+    # and lowers to a plain signed conversion in every backend.
     u01 = (bits >> jnp.uint32(8)).astype(jnp.int32).astype(jnp.float32) * jnp.float32(
         2**-24
     )
@@ -111,10 +112,8 @@ def step_uniform(seed, id_hi, id_lo, poisson_step, mob_step, lo=0.0, hi=1.0,
 def pair_draws(seed, id_hi, id_lo, poisson_step, t_even, lo=0.0, hi=1.0,
                rounds: int = 20):
     """``rng_mode="block2"``: ONE Threefry block serves a PAIR of mobility
-    steps (t_even, t_even + 1) — the cipher is ~75 full-width vector ops per
-    call inside the fused kernels' spill-bound T-loop, so halving its rate
-    is the single largest op-count cut available there (DESIGN.md perf
-    model).  Returns two (uniform, child_hi, child_lo) triples.
+    steps (t_even, t_even + 1).  Returns two (uniform, child_hi, child_lo)
+    triples.
 
     Derivation (pure function of (id, poisson_step, pair base), so every
     cadence/shard/engine agrees bit-exactly — same contract as step_draws):
@@ -124,7 +123,7 @@ def pair_draws(seed, id_hi, id_lo, poisson_step, t_even, lo=0.0, hi=1.0,
       odd  step:  u from b1;  child id = (b0 + GOLDEN, b1 ^ GOLDEN)
 
     ``child_lo ^ GOLDEN`` recovers the payload that produced u for BOTH
-    parities (the threshold-mode lookups rely on that, physics.py).  The two
+    parities.  The two
     children of a double-splitting parent can never collide: equal ids would
     need b1 == b0 + GOLDEN and b0 == b1 simultaneously.  Statistical
     quality: both draws and both ids are disjoint output words of one
@@ -149,10 +148,8 @@ def step_draws_mode(mode, seed, id_hi, id_lo, poisson_step, mob_step,
     """Per-step draws under the configured ``rng_mode``.
 
     "perstep" is the original step_draws (one block per step).  "block2"
-    computes the step's pair block and selects by parity — the oracle-path
-    form (one cipher per step, correct for scalar or vector ``mob_step``);
-    the fused kernels instead unroll their T-loop by 2 and call pair_draws
-    once per pair (bit-identical values by construction)."""
+    computes the step's pair block and selects by parity (one cipher per
+    step, correct for scalar or vector ``mob_step``)."""
     if mode == "perstep":
         return step_draws(
             seed, id_hi, id_lo, poisson_step, mob_step, lo, hi, rounds=rounds
@@ -166,18 +163,6 @@ def step_draws_mode(mode, seed, id_hi, id_lo, poisson_step, mob_step,
     )
     is_odd = (t & jnp.uint32(1)) == jnp.uint32(1)
     return tuple(jnp.where(is_odd, o, e) for e, o in zip(even, odd))
-
-
-def child_ids_at(mode, seed, id_hi, id_lo, poisson_step, t, rounds: int = 20):
-    """(child_hi, child_lo) minted by a split at mobility step ``t`` (scalar
-    or vector) — exactly the values step_draws_mode produced at that step.
-    The fused engines reconstruct staged children's genealogy ids post-loop
-    from (parent id, staged spawn step) with this (worklog.py/push_mcc.py),
-    so it must stay in lockstep with the draw protocol above."""
-    _, c_hi, c_lo = step_draws_mode(
-        mode, seed, id_hi, id_lo, poisson_step, t, rounds=rounds
-    )
-    return c_hi, c_lo
 
 
 def setup_uniform(id_hi, id_lo, axis, lo, hi):

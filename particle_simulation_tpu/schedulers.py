@@ -4,7 +4,7 @@ The reference's four CUDA schedulers (Dynamic / CPU Sync / Naive / Dynamic
 Old, src/pic.cu:19-316) are different ways to execute the same behavioral
 spec: children spawned at mobility step t are themselves simulated from step
 t+1 within the same Poisson step, and results must be scheduler-independent.
-On TPU the spec survives as *cadence configs* over one masked-array design:
+Here the spec survives as *cadence configs* over one masked-array design:
 
   * ``naive``   — one vectorized pass per mobility step, children appended at
                   end of each step (the reference Naive, src/pic.cu:251-288,
@@ -13,15 +13,14 @@ On TPU the spec survives as *cadence configs* over one masked-array design:
                   through all remaining steps, then newly spawned ranges,
                   until no new particles appear (the reference CPU Sync,
                   src/pic.cu:214-248, 514-522) — the parity oracle;
-  * ``dynamic`` — the work-log fused Pallas engine (ops/pallas/worklog.py):
-                  kernel-side dense emission of children/suspended/finished,
-                  self-compacting — this framework's performance
-                  contribution, analogous in role to the thesis's Dynamic;
-  * ``dynamic_old`` — the round-1 staged fused engine
-                  (ops/pallas/push_mcc.py): suspend-in-place + host-side
-                  argsort append.  A genuinely distinct engine kept in the
-                  test matrix, mirroring how the reference retains its older
-                  persistent kernel as mode 33 (src/pic.cu:291-316).
+  * ``dynamic`` — the generation-pass Pallas engine (ops/gpu_engine.py,
+                  compiled through Triton): each lane runs all its remaining
+                  mobility steps in registers, children and survivors are
+                  appended through atomic counters, self-compacting — the
+                  analog of the reference's Dynamic.
+
+The reference's Dynamic Old (mode 33, src/pic.cu:291-316) has no engine
+here.
 
 All cadences are bit-identical in physics because draws are keyed by particle
 genealogy (rng.py), not by execution order — the multiset of final particles
@@ -30,7 +29,7 @@ src/test.cu:43-101; tests/test_schedulers.py does the same).
 
 Protocol: every mobility phase returns ``(state, info)`` with info keys
 ``pushes_lo``/``pushes_hi`` (exact base-2^30 i32 pair of lane-steps actually
-advanced — f32 would round beyond 2^24, ADVICE r1), plus, for
+advanced — f32 would round beyond 2^24), plus, for
 self-compacting engines (fn.self_compacting == True), ``added`` (exact child
 count) and ``overflow``; a self-compacting engine returns an
 already-compacted state and poisson_step skips its compaction pass.
@@ -159,21 +158,11 @@ def get_mobility_phase(name: str):
         return mobility_phase_naive
     if name == "sync":
         return mobility_phase_sync
-    if name in ("dynamic", "dynamic_old"):
-        try:
-            if name == "dynamic":
-                from .ops.pallas.worklog import mobility_phase_worklog
+    if name == "dynamic":
+        from .ops.gpu_engine import mobility_phase_dynamic
 
-                return mobility_phase_worklog
-            from .ops.pallas.push_mcc import mobility_phase_dynamic
-
-            return mobility_phase_dynamic
-        except ImportError:  # fused engines not available on this build
-            import warnings
-
-            warnings.warn(
-                f"fused Pallas engine unavailable; {name!r} falling back "
-                "to the naive cadence (identical physics)"
-            )
-            return mobility_phase_naive
-    raise ValueError(f"unknown scheduler {name!r}")
+        return mobility_phase_dynamic
+    raise ValueError(
+        f"unknown scheduler {name!r}: use 'dynamic' (mode 30), 'sync' "
+        "(mode 31) or 'naive' (mode 32)"
+    )

@@ -2,9 +2,8 @@
 
 The reference stores an AoS ``Electron{double3 pos; double3 vel; float3 acc;
 int timestamp}`` in a double buffer of 2*capacity (src/electron.h:12-17,
-src/pic.cu:422).  On TPU we use SoA float32 arrays of shape (capacity, 3) /
-(capacity,), which map onto (8,128) VPU tiles, plus the 64-bit genealogy rng
-id (see rng.py).  There is no explicit double buffer: compaction is a
+src/pic.cu:422).  Here we use SoA float32 arrays of shape (capacity, 3) /
+(capacity,), plus the 64-bit genealogy rng id (see rng.py).  There is no explicit double buffer: compaction is a
 functional gather producing new arrays (XLA double-buffers for us).
 
 ``n`` is the number of *created* slots (may exceed capacity transiently, like

@@ -5,7 +5,7 @@ against the CPU Sync oracle.
 
 In this framework equivalence is *guaranteed by construction* (genealogy-
 keyed RNG, rng.py) — this harness is the regression check that the guarantee
-holds across the pure-JAX cadences and the fused Pallas engine.
+holds across the pure-JAX cadences and the Pallas engine.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from .runtime import run_pic, sorted_particle_array
 def run_unit_test(config: SimConfig, schedulers=None) -> bool:
     base_scheduler = "sync"  # the reference's base_function = 1 (CPU Sync)
     if schedulers is None:
-        schedulers = ["dynamic", "sync", "dynamic_old", "naive"]
+        schedulers = ["dynamic", "sync", "naive"]
 
     base = run_pic(config.replace(scheduler=base_scheduler), print_header=False)
     base_arr = sorted_particle_array(base.state)

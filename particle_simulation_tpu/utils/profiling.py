@@ -2,8 +2,9 @@
 
 Reference equivalents (SURVEY.md §5.1): the nsys wrapper (`report:1`), CUDA
 events around the sim loop (src/pic.cu:374-376, 570-572), and the chrono
-process timer (src/main.cu:19,45).  TPU-native: jax.profiler traces
-(Perfetto/XProf-compatible) plus block_until_ready wall timers.
+process timer (src/main.cu:19,45).  Here: jax.profiler traces
+(Perfetto/XProf-compatible; on the GPU they hold the device's kernels) plus
+block_until_ready wall timers.
 """
 
 from __future__ import annotations

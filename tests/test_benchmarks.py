@@ -11,7 +11,7 @@ def test_sweep_config_matrix():
     # reference: mobility steps 10..90 by 10, 100..1000 by 100 -> 19 values
     ts = sorted({c.poisson_timestep for c in full})
     assert ts[0] == 10 and ts[-1] == 1000 and len(ts) == 19
-    assert {c.scheduler for c in full} == {"dynamic", "sync", "naive", "dynamic_old"}
+    assert {c.scheduler for c in full} == {"dynamic", "sync", "naive"}
     assert all(c.init_n == 1_000_000 and c.capacity == 50_000_000 for c in full)
 
 

@@ -83,3 +83,20 @@ def test_npz_checkpoints_resume(tmp_path):
     st2, step = load_npz(os.path.join(d, "step_000004.npz"))
     assert step == 4
     np.testing.assert_array_equal(np.asarray(st.pos), np.asarray(st2.pos))
+
+
+def test_missing_orbax_names_the_package(tmp_path, monkeypatch):
+    """orbax is optional: without it the orbax backend fails up front, with
+    a message naming the package, and the npz backend still works."""
+    import sys
+
+    import pytest
+
+    from particle_simulation_tpu.checkpoint import make_checkpoint_hook
+
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    with pytest.raises(RuntimeError, match="orbax-checkpoint"):
+        make_checkpoint_hook(CFG, str(tmp_path))
+    hook = make_checkpoint_hook(CFG, str(tmp_path), backend="npz")
+    hook(2, setup_particles(CFG))
+    assert latest_step(str(tmp_path)) == 2

@@ -1,0 +1,21 @@
+"""The dynamic engine against the sync oracle on the bundled sine-modulated
+table (the reference's default).
+
+One case per integrator x collision model x boundary x draw protocol
+(engine_cases.MATRIX); each must match the oracle bit for bit.
+"""
+
+import pytest
+
+from engine_cases import (
+    BASE,
+    MATRIX_IDS,
+    MATRIX_KW,
+    assert_engine_matches_sync,
+)
+
+
+@pytest.mark.parametrize("kw", MATRIX_KW, ids=MATRIX_IDS)
+def test_engine_matches_sync_sine(sine_table, kw):
+    metrics = assert_engine_matches_sync(BASE.replace(**kw), sine_table)
+    assert sum(m["added"] + m["removed"] for m in metrics) > 0  # churn

@@ -1,0 +1,23 @@
+"""The dynamic engine against the sync oracle on a random table with spikes
+(engine_cases.spiky_table), so neighbouring energy buckets have very
+different chances.
+
+One case per integrator x collision model x boundary x draw protocol
+(engine_cases.MATRIX); each must match the oracle bit for bit.
+"""
+
+import pytest
+
+from engine_cases import (
+    BASE,
+    MATRIX_IDS,
+    MATRIX_KW,
+    assert_engine_matches_sync,
+    spiky_table,
+)
+
+
+@pytest.mark.parametrize("kw", MATRIX_KW, ids=MATRIX_IDS)
+def test_engine_matches_sync_spiky(kw):
+    metrics = assert_engine_matches_sync(BASE.replace(**kw), spiky_table())
+    assert sum(m["added"] + m["removed"] for m in metrics) > 0  # churn

@@ -270,7 +270,7 @@ def test_live_prefix_chunking_engine_equality(request):
 
 
 def test_deposit_sorted_matches_scatter_spread():
-    """deposit_sorted (sorted-window MXU histogram, VERDICT r4 #7) must
+    """deposit_sorted (sorted-window one-hot histogram) must
     reproduce the scatter histogram EXACTLY on a spread population — the
     workload class (periodic/thermal) where the bbox window never fits."""
     rng = np.random.default_rng(7)

@@ -154,7 +154,7 @@ def test_boris_b_field_cadence_independent(const_table):
     (same tolerance rationale as the zero-B boris case above)."""
     base = SimConfig(
         init_n=150, capacity=4096, poisson_steps=2, poisson_timestep=5,
-        grid_size=(16, 16, 16), kernel_sublanes=8, integrator="boris",
+        grid_size=(16, 16, 16), block_size=16, integrator="boris",
         b_field=(0.0, 0.0, 1e9),
     )
     arr_sync, n_sync = _run(base.replace(scheduler="sync"), const_table)
@@ -214,7 +214,7 @@ def test_periodic_boundary_keeps_population(const_table):
 def test_periodic_boundary_cadence_independent(const_table):
     base = SimConfig(
         init_n=150, capacity=4096, poisson_steps=2, poisson_timestep=5,
-        grid_size=(16, 16, 16), kernel_sublanes=8, boundary="periodic",
+        grid_size=(16, 16, 16), block_size=16, boundary="periodic",
     )
     arr_sync, n_sync = _run(base.replace(scheduler="sync"), const_table)
     arr_naive, n_naive = _run(base.replace(scheduler="naive"), const_table)
@@ -233,7 +233,7 @@ def test_boris_cadence_independent(const_table):
     leapfrog happens to compile identically and stays bit-exact)."""
     base = SimConfig(
         init_n=150, capacity=4096, poisson_steps=2, poisson_timestep=5,
-        grid_size=(16, 16, 16), kernel_sublanes=8, integrator="boris",
+        grid_size=(16, 16, 16), block_size=16, integrator="boris",
     )
     arr_sync, n_sync = _run(base.replace(scheduler="sync"), const_table)
     arr_dyn, n_dyn = _run(base.replace(scheduler="dynamic"), const_table)
@@ -250,7 +250,7 @@ def test_isotropic_cadence_independent(const_table):
     compared with a tight tolerance (documented in models/collisions.py)."""
     base = SimConfig(
         init_n=150, capacity=4096, poisson_steps=2, poisson_timestep=5,
-        grid_size=(16, 16, 16), kernel_sublanes=8,
+        grid_size=(16, 16, 16), block_size=16,
         collision_model="isotropic",
     )
     arr_sync, n_sync = _run(base.replace(scheduler="sync"), const_table)

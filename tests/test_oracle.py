@@ -1,4 +1,4 @@
-"""f64 CPU oracle vs the f32 TPU-precision path (SURVEY.md §4: oracle is a
+"""f64 CPU oracle vs the f32 production path (SURVEY.md §4: oracle is a
 pure-JAX CPU-runnable reference step under x64).
 
 With the constant cross-section table, collision decisions are independent

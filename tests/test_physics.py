@@ -55,7 +55,7 @@ def _run_update(p, split, remove, active=None, t=3):
     if active is None:
         active = jnp.ones((n,), bool)
 
-    def lookup(energy, u=None, bits=None):
+    def lookup(energy):
         return (jnp.full(energy.shape, split, jnp.float32),
                 jnp.full(energy.shape, remove, jnp.float32))
 

@@ -1,16 +1,15 @@
 """Mid-phase dead-slot reclamation (population.reclaim + the host-chunked
 paths' reclaim wiring).
 
-At the canonical dynamic_old/naive T>=800 tails the mobility phase's
-CUMULATIVE appends (~30M rows) dwarf the live population (~1M), and the
-un-reclaimed bucket ladder exceeds the largest HBM-feasible bucket
-(STATUS.md OOM).  Reclamation drops DEAD rows between host-chunk
+At the canonical naive T>=800 tails the mobility phase's CUMULATIVE appends
+(~30M rows) dwarf the live population (~1M), and the un-reclaimed bucket
+ladder exceeds the largest bucket that fits in device memory.  Reclamation drops DEAD rows between host-chunk
 dispatches; physics must be invariant (draws are genealogy-keyed, rng.py)
 and metrics must stay bit-identical via the reclaimed-count fold-back
 (ops/step._sync_finalize_jit).
 
 The reference never reclaims mid-phase (its 5e7-slot container absorbs a
-whole phase, src/pic.cu:127-131) — this is a TPU memory-management design
+whole phase, src/pic.cu:127-131) — this is a memory-management design
 choice with an exactness proof obligation, discharged here.
 """
 
@@ -29,17 +28,16 @@ from particle_simulation_tpu.ops import step as step_mod
 from particle_simulation_tpu.ops.step import (
     poisson_step,
     poisson_step_naive_host,
-    poisson_step_staged_host,
 )
 from particle_simulation_tpu.runtime import sorted_particle_array
 from particle_simulation_tpu.state import SimState
 
-from test_worklog import BASE
+from engine_cases import BASE
 
 
 def test_reclaim_preserves_statuses_and_order():
     """DEAD and EMPTY rows below n vanish; survivors close ranks in order
-    with statuses (ALIVE, spawn stamps, suspension-like negatives)
+    with statuses (ALIVE, spawn stamps, other negatives)
     preserved VERBATIM — unlike compact(), which resets to ALIVE."""
     c = 16
     statuses = [
@@ -59,8 +57,7 @@ def test_reclaim_preserves_statuses_and_order():
     )
     out, reclaimed = population.reclaim(state)
     # live rows: indices 0, 2, 5, 7  (ALIVE / stamp>0); -40005 is NOT live
-    # under the SimState protocol (suspension packs never escape the fused
-    # engines' field layout) — it is reclaimed like DEAD here.
+    # under the SimState protocol — it is reclaimed like DEAD here.
     keep = [0, 2, 5, 7]
     assert int(out.n) == len(keep)
     assert int(reclaimed) == n - len(keep)
@@ -108,34 +105,6 @@ def test_naive_host_reclaim_bit_exact(const_table, monkeypatch):
         )
 
     got, got_m = _run(NAIVE_CFG, const_table, host_step)
-    np.testing.assert_array_equal(ref, got)
-    assert ref_m == got_m
-
-
-STAGED_CFG = BASE.replace(
-    scheduler="dynamic_old", poisson_steps=2, poisson_timestep=6,
-    # shallow staging forces suspend/resume -> several sweep passes per
-    # step, so reclamation actually interleaves the fixed point
-    spawn_depth=1,
-)
-
-
-@pytest.mark.slow
-def test_staged_host_reclaim_bit_exact(const_table, monkeypatch):
-    """Forced reclamation between every pass of the staged fixed point:
-    suspended / stamped / finished statuses all survive the field-layout
-    row gather; final multiset and metrics match the in-jit phase."""
-    ref, ref_m = _run(STAGED_CFG, const_table, poisson_step)
-    assert any(m["removed"] > 0 for m in ref_m)
-
-    monkeypatch.setattr(step_mod, "_RECLAIM_MIN", 0)
-
-    def host_step(state, t, table, cfg):
-        return poisson_step_staged_host(
-            state, t, table, cfg, pass_chunk=1, stop_on_overflow=False
-        )
-
-    got, got_m = _run(STAGED_CFG, const_table, host_step)
     np.testing.assert_array_equal(ref, got)
     assert ref_m == got_m
 

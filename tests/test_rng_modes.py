@@ -1,30 +1,25 @@
-"""Draw-protocol modes (rng_mode) and the worklog T-loop unroll.
+"""Draw-protocol modes (rng_mode).
 
-rng_mode="block2" (one Threefry block per step pair, rng.pair_draws) and
-worklog_unroll=2 (two mobility steps per loop iteration) are the round-3
-kernel op-count levers (config.py notes).  Contracts enforced here:
+rng_mode="block2" draws one Threefry block per step pair (rng.pair_draws).
+Contracts enforced here:
 
-  * step_draws_mode("perstep", ...) IS step_draws — bit-identical, so the
-    default path is untouched by the refactor;
-  * block2's per-step oracle form, the pair form the unrolled kernel
-    consumes, and child_ids_at (the kernels' post-loop id reconstruction)
-    all agree bit-exactly;
-  * the payload-recovery identity the threshold lookups rely on
-    (physics.py: bits = child_lo ^ GOLDEN produced u) holds in every mode;
-  * worklog_unroll=2 is bit-identical to unroll=1 at fixed rng_mode;
-  * all cadences (sync oracle, naive, worklog) agree under block2 — the
-    reference's scheduler-equivalence contract (src/test.cu:43-101) for the
-    new protocol.
+  * step_draws_mode("perstep", ...) IS step_draws — bit-identical;
+  * block2's per-step form and the pair form agree bit-exactly;
+  * the payload-recovery identity (physics.py: bits = child_lo ^ GOLDEN
+    produced u) holds in every mode;
+  * all cadences (sync oracle, naive, the dynamic engine) agree under
+    either mode, with odd T so block2's last pair is cut in half — the
+    reference's scheduler-equivalence contract (src/test.cu:43-101).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_simulation_tpu import SimConfig, rng
+from particle_simulation_tpu import rng
 from particle_simulation_tpu.runtime import sorted_particle_array
 
-from test_worklog import BASE, run_steps
+from engine_cases import BASE, run_steps
 
 
 def _ids(n=4096, seed=7):
@@ -65,20 +60,6 @@ def test_block2_per_step_matches_pair_form():
 
 
 @pytest.mark.parametrize("mode", ["perstep", "block2"])
-def test_child_ids_at_matches_draws(mode):
-    id_hi, id_lo = _ids()
-    t_vec = (jnp.arange(4096, dtype=jnp.uint32) % 9) + 1
-    _, want_hi, want_lo = rng.step_draws_mode(
-        mode, 39587, id_hi, id_lo, 2, t_vec, 0.0, 100.0, rounds=13
-    )
-    got_hi, got_lo = rng.child_ids_at(
-        mode, 39587, id_hi, id_lo, 2, t_vec, rounds=13
-    )
-    np.testing.assert_array_equal(np.asarray(got_hi), np.asarray(want_hi))
-    np.testing.assert_array_equal(np.asarray(got_lo), np.asarray(want_lo))
-
-
-@pytest.mark.parametrize("mode", ["perstep", "block2"])
 def test_payload_recovery_identity(mode):
     # physics.update_particles recovers the 24-bit payload that produced u
     # as child_lo ^ GOLDEN (threshold lookups decide in integer space)
@@ -103,10 +84,10 @@ def test_block2_sibling_ids_distinct():
     assert not same.any()
 
 
-# ---- engine equivalence under the new protocol ----
+# ---- engine equivalence under each protocol ----
 
-# odd T exercises the unrolled loop's straddling-pair gate; the const 50/50
-# table drives heavy splitting (suspension + relocation chains at depth 2)
+# odd T: block2's last step pair is cut in half; the const 50/50 table
+# drives heavy splitting, so children start on both parities
 _CFG = BASE.replace(poisson_timestep=7, scheduler="dynamic")
 
 
@@ -115,68 +96,19 @@ def _final(cfg, table):
     return sorted_particle_array(state), metrics
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("unroll", [2, 4, 8])
-def test_worklog_block2_unrolled_matches_oracle(const_table, unroll):
-    """worklog (unrolled T-loop + pair-fused block2 draws) vs the pure-JAX
-    cadences under the same rng_mode: exact multiset + metrics equality.
-    T=7 makes the unroll=4 loop's last iteration straddle ``upper`` at BOTH
-    its second pair's even step and the odd tail — every gate exercised
-    (at unroll=8 the whole loop is one straddling iteration).  Slow lane
-    (r4 split): the default-lane worklog-vs-oracle coverage of the shipped
-    block2+unroll4 engine is test_worklog_matches_sync_oracle[d2], which
-    runs the session-default stream; this matrix pins the 2/4/8 family."""
-    cfg = _CFG.replace(rng_mode="block2", worklog_unroll=unroll)
-    arr_w, m_w = _final(cfg, const_table)
-    arr_n, m_n = _final(cfg.replace(scheduler="naive"), const_table)
-    np.testing.assert_array_equal(arr_w, arr_n)
-    assert m_w == m_n
-
-
-@pytest.mark.slow
-def test_worklog_block2_sync_oracle(const_table):
-    cfg = _CFG.replace(rng_mode="block2", worklog_unroll=2)
-    arr_w, m_w = _final(cfg, const_table)
-    arr_s, m_s = _final(cfg.replace(scheduler="sync"), const_table)
-    np.testing.assert_array_equal(arr_w, arr_s)
-    assert m_w == m_s
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("unroll", [2, 4, 8])
 @pytest.mark.parametrize("mode", ["perstep", "block2"])
-def test_worklog_unrolled_bitexact_vs_unroll1(const_table, mode, unroll):
-    """The unroll is a pure rescheduling of the same per-step math: final
-    state and every metric must match unroll=1 exactly at fixed rng_mode."""
+def test_engine_matches_naive_odd_t(const_table, mode):
     cfg = _CFG.replace(rng_mode=mode)
-    arr1, m1 = _final(cfg.replace(worklog_unroll=1), const_table)
-    arr2, m2 = _final(cfg.replace(worklog_unroll=unroll), const_table)
-    np.testing.assert_array_equal(arr1, arr2)
-    assert m1 == m2
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("unroll", [2, 4])
-def test_worklog_unrolled_with_horizon_segments(const_table, unroll):
-    """Straddling pairs at horizon-window uppers: the half-step gates must
-    stop execution exactly at the window end (width-3 windows land upper on
-    every residue mod 4, so unroll=4 exercises both in-iteration gates)."""
-    cfg = _CFG.replace(
-        rng_mode="block2", worklog_unroll=unroll,
-        worklog_horizon=3, worklog_start_buckets=2,
-    )
-    arr_w, m_w = _final(cfg, const_table)
-    arr_n, m_n = _final(
-        _CFG.replace(rng_mode="block2", scheduler="naive"), const_table
-    )
-    np.testing.assert_array_equal(arr_w, arr_n)
-    assert m_w == m_n
-
-
-@pytest.mark.slow
-def test_staged_engine_block2(const_table):
-    cfg = _CFG.replace(rng_mode="block2", scheduler="dynamic_old")
     arr_d, m_d = _final(cfg, const_table)
     arr_n, m_n = _final(cfg.replace(scheduler="naive"), const_table)
     np.testing.assert_array_equal(arr_d, arr_n)
     assert m_d == m_n
+
+
+@pytest.mark.parametrize("mode", ["perstep", "block2"])
+def test_engine_matches_sync_odd_t(const_table, mode):
+    cfg = _CFG.replace(rng_mode=mode)
+    arr_d, m_d = _final(cfg, const_table)
+    arr_s, m_s = _final(cfg.replace(scheduler="sync"), const_table)
+    np.testing.assert_array_equal(arr_d, arr_s)
+    assert m_d == m_s

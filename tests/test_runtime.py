@@ -35,12 +35,12 @@ def test_cli_positional_contract():
     assert cfg.sleep_time_ns == 100
     assert cfg.poisson_timestep == 9
     assert cfg.grid_size == (16, 16, 16)
-    assert set(SCHEDULER_MODES) == {"30", "31", "32", "33"}
+    assert set(SCHEDULER_MODES) == {"30", "31", "32"}
 
 
 def test_cli_rejects_partial_positional_args():
     # the reference requires all 8 args (src/main.cu:10-24); partial lists
-    # must not silently run with defaults (ADVICE r1)
+    # must not silently run with defaults
     import pytest
 
     with pytest.raises(SystemExit):
@@ -56,19 +56,19 @@ def test_cli_mesh_override():
 
 def test_cli_engine_knob_passthrough():
     # any scalar SimConfig field is a valid override, coerced by type;
-    # unknown keys stay a hard error (strict-CLI contract, ADVICE r1)
+    # unknown keys stay a hard error (strict-CLI contract)
     import pytest
 
     opts = parse_args(
         ["30", "0", "1000", "7", "128", "5000", "100", "9",
-         "lookup_hits=1", "worklog_start_buckets=4", "kernel_sublanes=64",
-         "lookup_mode=staticguard"]
+         "rng_mode=perstep", "bbox_subgrid=32", "init_vth=2.5",
+         "grid_live_chunks=4"]
     )
     cfg = opts.config
-    assert cfg.lookup_hits is True
-    assert cfg.worklog_start_buckets == 4
-    assert cfg.kernel_sublanes == 64
-    assert cfg.lookup_mode == "staticguard"
+    assert cfg.rng_mode == "perstep"
+    assert cfg.bbox_subgrid == 32
+    assert cfg.init_vth == 2.5
+    assert cfg.grid_live_chunks == 4
     with pytest.raises(SystemExit):
         parse_args(["30", "0", "1000", "7", "128", "5000", "100", "9",
                     "no_such_knob=1"])
@@ -455,7 +455,7 @@ def test_row_ckpt_resume_bit_exact(tmp_path):
     )
     full = run_pic_device(cfg)
 
-    # fabricate the snapshot a worker fault would have left after step 2:
+    # fabricate the snapshot an interrupted process would have left after step 2:
     # run the first 2 steps for real, then persist exactly what
     # run_pic_device's per-step hook persists
     head = run_pic_device(cfg.replace(poisson_steps=2))

@@ -21,10 +21,7 @@ CFG = SimConfig(
 )
 
 
-@pytest.mark.parametrize(
-    "sched",
-    ["naive", pytest.param("dynamic_old", marks=pytest.mark.slow)],
-)
+@pytest.mark.parametrize("sched", ["naive", "dynamic"])
 def test_cadence_equivalence(sched):
     base = run_pic(CFG.replace(scheduler="sync"), print_header=False)
     other = run_pic(CFG.replace(scheduler=sched), print_header=False)
@@ -36,7 +33,7 @@ def test_cadence_equivalence(sched):
 
 def test_run_unit_test_harness():
     ok = run_unit_test(
-        CFG.replace(poisson_steps=2), schedulers=["naive", "dynamic_old"]
+        CFG.replace(poisson_steps=2), schedulers=["naive", "dynamic"]
     )
     assert ok
 
